@@ -1,13 +1,13 @@
-"""rust_ray_tracer_tpu — a TPU-native differentiable wavefront path tracer.
+"""rust_ray_tracer_tpu — a differentiable wavefront path tracer in JAX.
 
-A from-scratch JAX/Pallas reimplementation of the capabilities of the
+A from-scratch JAX reimplementation of the capabilities of the
 Safarte/rust-ray-tracer reference (a Shirley-style CPU path tracer in Rust),
-re-designed TPU-first:
+re-designed for data-parallel accelerators:
 
   * structure-of-arrays scene data (no pointer trees),
-  * ray/primitive intersection expressed as MXU matmuls over Plücker ray
-    features (one ``[N,10] @ [10,4T]`` contraction replaces per-ray
-    Möller–Trumbore recursion),
+  * ray/triangle intersection expressed as linear functions of Plücker ray
+    features (one ``[N,10] @ [10,4T]`` contraction, or on the GPU one
+    fused Pallas kernel, replaces per-ray Möller–Trumbore recursion),
   * an iterative wavefront integrator (fixed bounce depth, branchless
     material evaluation) replacing the reference's per-pixel recursion
     (``/root/reference/src/ray.rs:78-127``),
@@ -15,7 +15,8 @@ re-designed TPU-first:
     any device sharding (the reference uses unseeded ``thread_rng``),
   * differentiable end-to-end (material / camera / vertex gradients) via
     detached sampling,
-  * multi-chip scaling by sharding the ray axis over a ``jax.sharding.Mesh``.
+  * multi-device scaling by sharding the ray axis over a
+    ``jax.sharding.Mesh``.
 
 Package layout:
   ops/       compute kernels: camera ray-gen, intersection, shading,

@@ -217,6 +217,26 @@ def final_scene(aspect: float, seed: int = 0) -> S.Scene:
                    background=(0, 0, 0))
 
 
+def flagship(aspect: float, seed: int = 0, n_tris: int = 968) -> S.Scene:
+    """The benchmark's triangle workload (not a reference scene):
+    ``n_tris`` small double-sided Lambertian triangles scattered through
+    a 2x2x2 box in front of the camera, lit by one small sphere lamp.
+    968 triangles is the size of the reference's suzanne.gltf; the mesh
+    is generated from ``seed``, so no asset file is needed."""
+    rng = np.random.default_rng(seed)
+    mat = S.Lambertian.from_rgb(0.8, 0.8, 0.8)
+    tris = []
+    for _ in range(n_tris):
+        v0 = rng.uniform(-1, 1, 3).astype(np.float32)
+        v0[2] -= 4.0
+        e = rng.uniform(-0.1, 0.1, (2, 3)).astype(np.float32)
+        tris.append(S.Triangle(v0, v0 + e[0], v0 + e[1], mat,
+                               double_sided=True))
+    lamp = S.Sphere((3, 3, 0), 0.2, S.DiffuseLight.from_color((250,) * 3))
+    cam = make_camera(np.eye(3, 4, dtype=np.float32), 22.9, aspect)
+    return S.Scene(cam, tris + [lamp], [lamp], (0.051, 0.051, 0.051))
+
+
 def _composite(aspect: float, seed: int = 0) -> S.Scene:
     # 9th, non-reference scene (BASELINE config 5); lazy import keeps the
     # glTF machinery out of pure-procedural paths. Needs the reference
@@ -234,6 +254,7 @@ _BUILDERS = {
     "cornell_box": cornell_box,
     "cornell_triangle": cornell_triangle,
     "final_scene": final_scene,
+    "flagship": flagship,
     "composite": _composite,
 }
 

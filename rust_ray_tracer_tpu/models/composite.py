@@ -108,7 +108,7 @@ def composite_scene(aspect: float, seed: int = 0, n_spheres: int = 4,
       seed: layout seed for the procedural prop jitter.
       n_spheres: how many complete MetalRoughSpheres PBR spheres to
         include (4 -> ~43k tris for CPU tests; 49 -> the full grid's
-        ~520k for the TPU bench).
+        ~520k).
       assets_dir: directory holding suzanne.gltf + MetalRoughSpheres/.
 
     Raises FileNotFoundError if the assets are absent (tests skip).

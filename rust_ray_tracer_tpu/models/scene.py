@@ -1,4 +1,4 @@
-"""Scene description and its compilation to TPU-resident structure-of-arrays.
+"""Scene description and its compilation to device-resident structure-of-arrays.
 
 The reference stores the scene as an ``Arc<dyn Hittable>`` pointer tree with
 virtual dispatch per primitive (``/root/reference/src/geometry/mod.rs:45-62``)
@@ -26,7 +26,6 @@ None of that maps to a vector machine. Here:
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -61,7 +60,7 @@ MED_SPHERE = 0       # constant-medium boundary kinds (SceneData.med_kind)
 MED_POLY = 1
 MED_MESH = 2
 
-CLUSTER = 128        # min triangles per culling cluster (one kernel tile)
+CLUSTER = 128        # min triangles per culling cluster
 MAX_CLUSTERS = 512   # cap on cluster count K — see compile_scene
 
 
@@ -105,31 +104,13 @@ class SceneData(NamedTuple):
     quad_flip: jnp.ndarray    # [Q] bool
 
     # Triangle clusters: tris are Morton-ordered at compile time so each
-    # consecutive group of CLUSTER tris is spatially compact; per-cluster
-    # AABBs let the intersection kernel skip whole (ray-tile, cluster)
-    # pairs — the TPU-shaped stand-in for BVH traversal (dense compute,
-    # tile-granular culling, no pointer chasing).
+    # consecutive group of tris (the cluster width, T/K) is spatially
+    # compact; per-cluster AABBs let the GPU search skip whole clusters
+    # for a block of rays (ops/tri_search.py) — one flat level standing
+    # in for BVH traversal — and bound auto_compact's probe on big
+    # meshes. Empty (all-pad) clusters carry inverted boxes (min > max).
     tri_cluster_min: jnp.ndarray  # [K,3]
     tri_cluster_max: jnp.ndarray  # [K,3]
-
-    # Sub-cluster AABBs — the second level of the device hierarchy
-    # (big meshes only; empty otherwise). Each cluster of width W splits
-    # into W // max(128, W // 16) Morton-contiguous sub-spans; the mask
-    # pre-pass tests rays against SUB-boxes and the search kernel skips
-    # whole sub-matmuls via a per-(tile, cluster) survivor bitmask
-    # (ops/pallas_intersect.fused_search). This is the log-N pruning of
-    # the reference BVH (geometry/mod.rs:137-153) in MXU-tile form.
-    tri_sub_min: jnp.ndarray  # [K*SUB,3]
-    tri_sub_max: jnp.ndarray  # [K*SUB,3]
-
-    # Sphere clusters (same design as triangle clusters; boxes swept over
-    # the motion-blur time range).
-    sph_cluster_min: jnp.ndarray  # [Ks,3]
-    sph_cluster_max: jnp.ndarray  # [Ks,3]
-
-    # Quad clusters.
-    quad_cluster_min: jnp.ndarray  # [Kq,3]
-    quad_cluster_max: jnp.ndarray  # [Kq,3]
 
     # Constant media (constant_medium.rs:46-80). The reference wraps any
     # ``Arc<dyn Hittable>``; here a boundary is either a sphere
@@ -758,31 +739,25 @@ def compile_scene(scene: Scene, seed: int = 0,
 
     Triangles are Morton-sorted (so cluster-sized index ranges are
     spatially compact) and padded to a multiple of ``tri_pad`` with
-    degenerate zero-edge triangles (det == 0, can never hit) so the
-    intersection matmul tiles cleanly on the MXU; per-cluster AABBs are
-    emitted for kernel-side culling. Other kinds pad to ``pad`` with
-    radius-0 spheres / zero-edge quads.
+    degenerate zero-edge triangles (det == 0, can never hit); per-cluster
+    AABBs are emitted for the GPU search's culling. Other kinds pad to
+    ``pad`` with radius-0 spheres / zero-edge quads.
 
     ``tri_pad`` (= triangles per culling cluster) scales with the mesh:
     CLUSTER (128) up to 64k triangles, then doubling so the cluster
-    count K stays <= MAX_CLUSTERS. Both the [C, K] XLA slab-mask
-    pre-pass and the kernel's (ray-tile x cluster) grid are linear in K,
-    so a fixed 128-wide cluster would cost 7800 grid steps/tile and a
-    72M-pair mask at 1M triangles; capping K trades cull granularity
-    (1/512 of the Morton curve per cluster — still spatially tight) for
-    a bounded pre-pass. The kernels derive the cluster width from the
-    compiled shapes, so no constant threads through the call chain.
+    count K stays <= MAX_CLUSTERS. The GPU search walks the K boxes per
+    block of rays, so K bounds its per-block cull work; a wider cluster
+    trades cull granularity (1/512 of the Morton curve per cluster —
+    still spatially tight) for that bound. The search derives the
+    cluster width from the compiled shapes, so no constant threads
+    through the call chain.
     """
     b = _Builder()
     b.add(scene.world, _affine(), False)
 
     if tri_pad is None:
-        # RRT_MAX_CLUSTERS: perf-sweep override for the cluster-count cap
-        # (more clusters = narrower sweeps but a longer grid; tuned on
-        # hardware — tools/r3_tpu_check.py). Semantics are unaffected.
-        max_k = int(os.environ.get("RRT_MAX_CLUSTERS", MAX_CLUSTERS))
         tri_pad = CLUSTER
-        while len(b.tris) > max_k * tri_pad:
+        while len(b.tris) > MAX_CLUSTERS * tri_pad:
             tri_pad *= 2
 
     # --- lights: only bare Sphere / XZRect have sampling (see LIGHT_* docs)
@@ -839,46 +814,10 @@ def compile_scene(scene: Scene, seed: int = 0,
         k = tn // tri_pad
         cl_min = lo.reshape(k, tri_pad, 3).min(1)
         cl_max = hi.reshape(k, tri_pad, 3).max(1)
-        # empty clusters (all-pad) keep inverted boxes (min > max); the
-        # mask pre-pass rejects them explicitly (min <= max check in
-        # ops/pallas_intersect._tile_cluster_mask)
-        # second hierarchy level: fine sub-cluster boxes. Two consumers,
-        # BOTH ablation-only (coarse cluster-block pairs are the default
-        # search grid at k >= PAIR_MIN_K):
-        # (a) the fine pair-list search grid (RRT_PAIR_FINE=1,
-        #     pallas_intersect._make_pair_kernel): each live
-        #     (tile, sub-box) pair becomes one small grid step —
-        #     measured LOSS vs coarse pairs on the 1M-tri scene
-        #     (fwd 948.0 vs 910.7 ms/wave, tools/r4_bigmesh_pair.py);
-        # (b) the per-(tile, cluster) BITMASK gating sub-matmuls inside
-        #     the dense grid — an ablation path only (RRT_SUB_W):
-        #     measured REGRESSION on hardware (fwd 1437.0 ms/wave sub
-        #     vs 1351.8 flat, tools/r4_compact_check.py, v5e
-        #     2026-08-19) because the DMA unit stays the whole cluster.
-        # Default width: CLUSTER (128) whenever clusters are wider than
-        # that (adaptive big-mesh widths); RRT_SUB_W overrides for
-        # bitmask experiments (clamped to a lane-aligned divisor of the
-        # cluster width with <= 31 sub-spans — the int32 bitmask
-        # budget).
-        subw = CLUSTER
-        if os.environ.get("RRT_SUB_W"):
-            want = int(os.environ["RRT_SUB_W"])
-            subw = CLUSTER          # powers of two always divide tri_pad
-            while tri_pad // subw > 31 or subw < want:
-                subw *= 2
-            subw = min(subw, tri_pad)
-        if tri_pad > subw:
-            ks = tn // subw
-            sub_min = lo.reshape(ks, subw, 3).min(1)
-            sub_max = hi.reshape(ks, subw, 3).max(1)
-        else:
-            sub_min = np.zeros((0, 3), np.float32)
-            sub_max = np.zeros((0, 3), np.float32)
+        # empty clusters (all-pad) keep inverted boxes (min > max)
     else:
         cl_min = np.zeros((0, 3), np.float32)
         cl_max = np.zeros((0, 3), np.float32)
-        sub_min = np.zeros((0, 3), np.float32)
-        sub_max = np.zeros((0, 3), np.float32)
 
     sphs = dict(
         c0=_stack(b.sphs, lambda r: r[0], (3,)),
@@ -892,28 +831,7 @@ def compile_scene(scene: Scene, seed: int = 0,
     if len(b.sphs) > 1:
         sperm = _morton_argsort((sphs["c0"] + sphs["c1"]) * 0.5)
         sphs = {k: a[sperm] for k, a in sphs.items()}
-    # spheres pad to CLUSTER when the Pallas sphere kernel would engage
-    # (more than one cluster's worth); tiny counts keep the cheap pad
-    sph_pad = pad if len(b.sphs) <= CLUSTER else CLUSTER
-    sphs = _pad_rows(sphs, sph_pad, {"t1": 1.0})
-
-    sn = sphs["c0"].shape[0]
-    ns_real = len(b.sphs)
-    if sn:
-        lo = np.minimum(sphs["c0"], sphs["c1"]) - sphs["r"][:, None]
-        hi = np.maximum(sphs["c0"], sphs["c1"]) + sphs["r"][:, None]
-        lo[ns_real:] = np.inf
-        hi[ns_real:] = -np.inf
-        ks = -(-sn // CLUSTER)
-        pad_rows = ks * CLUSTER - sn
-        if pad_rows:
-            lo = np.concatenate([lo, np.full((pad_rows, 3), np.inf)], 0)
-            hi = np.concatenate([hi, np.full((pad_rows, 3), -np.inf)], 0)
-        s_cl_min = lo.reshape(ks, CLUSTER, 3).min(1)
-        s_cl_max = hi.reshape(ks, CLUSTER, 3).max(1)
-    else:
-        s_cl_min = np.zeros((0, 3), np.float32)
-        s_cl_max = np.zeros((0, 3), np.float32)
+    sphs = _pad_rows(sphs, pad, {"t1": 1.0})
 
     quads = dict(
         q=_stack(b.quads, lambda r: r[0], (3,)),
@@ -926,28 +844,7 @@ def compile_scene(scene: Scene, seed: int = 0,
         qperm = _morton_argsort(
             quads["q"] + 0.5 * (quads["u"] + quads["v"]))
         quads = {k: a[qperm] for k, a in quads.items()}
-    quads = _pad_rows(quads, pad if len(b.quads) <= CLUSTER else CLUSTER,
-                      {})
-
-    qn = quads["q"].shape[0]
-    nq_real = len(b.quads)
-    if qn:
-        qc = np.stack([quads["q"], quads["q"] + quads["u"],
-                       quads["q"] + quads["v"],
-                       quads["q"] + quads["u"] + quads["v"]], 1)
-        qlo, qhi = qc.min(1), qc.max(1)
-        qlo[nq_real:] = np.inf
-        qhi[nq_real:] = -np.inf
-        kq = -(-qn // CLUSTER)
-        padq = kq * CLUSTER - qn
-        if padq:
-            qlo = np.concatenate([qlo, np.full((padq, 3), np.inf)], 0)
-            qhi = np.concatenate([qhi, np.full((padq, 3), -np.inf)], 0)
-        q_cl_min = qlo.reshape(kq, CLUSTER, 3).min(1)
-        q_cl_max = qhi.reshape(kq, CLUSTER, 3).max(1)
-    else:
-        q_cl_min = np.zeros((0, 3), np.float32)
-        q_cl_max = np.zeros((0, 3), np.float32)
+    quads = _pad_rows(quads, pad, {})
 
     meds = dict(
         c=_stack(b.media, lambda r: r[0], (3,)),
@@ -1021,17 +918,11 @@ def compile_scene(scene: Scene, seed: int = 0,
         tri_flip=j(tris["flip"]),
         tri_cluster_min=j(cl_min.astype(np.float32)),
         tri_cluster_max=j(cl_max.astype(np.float32)),
-        tri_sub_min=j(sub_min.astype(np.float32)),
-        tri_sub_max=j(sub_max.astype(np.float32)),
         sph_c0=j(sphs["c0"]), sph_c1=j(sphs["c1"]), sph_t0=j(sphs["t0"]),
         sph_t1=j(sphs["t1"]), sph_r=j(sphs["r"]), sph_mat=j(sphs["mat"]),
         sph_flip=j(sphs["flip"]),
-        sph_cluster_min=j(s_cl_min.astype(np.float32)),
-        sph_cluster_max=j(s_cl_max.astype(np.float32)),
         quad_q=j(quads["q"]), quad_u=j(quads["u"]), quad_v=j(quads["v"]),
         quad_mat=j(quads["mat"]), quad_flip=j(quads["flip"]),
-        quad_cluster_min=j(q_cl_min.astype(np.float32)),
-        quad_cluster_max=j(q_cl_max.astype(np.float32)),
         med_c=j(meds["c"]), med_r=j(meds["r"]), med_neg_inv_d=j(meds["nid"]),
         med_mat=j(meds["mat"]), med_kind=j(meds["kind"]),
         med_pl_n=j(med_pl_n), med_pl_d=j(med_pl_d), med_tri=j(med_tri),

@@ -17,13 +17,16 @@ _LIB = None
 
 
 def build(force: bool = False) -> str:
-    """Compile librrt_native.so via make; returns the path."""
+    """Compile librrt_native.so via make; returns the path. ``force``
+    rebuilds even when the library looks up to date (a copied tree can
+    carry a library built for another machine)."""
     import subprocess
 
     here = os.path.dirname(__file__)
     path = os.path.join(here, "librrt_native.so")
     if force or not os.path.exists(path):
-        subprocess.run(["make", "-C", here], check=True,
+        subprocess.run(["make", "-B", "-C", here] if force
+                       else ["make", "-C", here], check=True,
                        capture_output=True)
     return path
 

@@ -1,10 +1,11 @@
 """Pinhole camera: batched ray generation.
 
-TPU-native counterpart of ``/root/reference/src/camera.rs``. The reference
+Batched counterpart of the reference's ``src/camera.rs``. The reference
 generates one ray at a time from a ``camera_to_world: Affine3A`` and a
 vfov-derived ``scale = tan(vfov/2)`` (camera.rs:18-39,56-69); here ray
 generation is a single batched affine transform over all (pixel, sample)
-coordinates — pure VPU work that XLA fuses into the downstream intersection.
+coordinates — elementwise work that XLA fuses into the downstream
+intersection.
 
 Reference conventions replicated exactly:
   * ndc: px = (2*(x+0.5)/W - 1) * scale * aspect,  py likewise with H
@@ -29,10 +30,10 @@ import jax.numpy as jnp
 import numpy as np
 
 # Chunks walk the image in Morton (Z-curve) pixel order, not scan-line
-# order: a 256-ray kernel tile then covers a ~16x16 pixel square instead
-# of half an image row, so its frustum is tight and the per-tile cluster
-# cull (pallas_intersect) rejects far more geometry — measured 197 ->
-# ~30 surviving clusters/tile on the 1M-tri MetalRoughSpheres primaries.
+# order: a block of consecutive rays then covers a compact pixel square
+# instead of part of an image row, so its frustum is tight and the GPU
+# search's per-block cluster cull (ops/tri_search.py) rejects more
+# geometry.
 # Determinism is unaffected (the pixel->chunk map is a pure function of
 # (width, height)); it DOES change which jitter/path randoms each pixel
 # draws, i.e. renders differ from scan-order builds like a seed change.
@@ -73,9 +74,8 @@ def _pixel_order_chunked(width: int, height: int, chunk_size: int,
     """[n_chunks, chunk_size] pixel ids along the Morton curve, the pad
     tail clamped to the last pixel (same values as
     ``pixel_id_for_position(min(pos, n-1))``). Indexing one row by a
-    traced chunk id is a dynamic-slice, which on TPU costs ~5us vs
-    ~65us for the equivalent 147k-row gather (round-4 suzanne trace:
-    fusion.146, camera.py:67 — one gather per chunk per wave).
+    traced chunk id is a dynamic-slice rather than a gather over every
+    pixel of the wave.
 
     ``morton`` mirrors the module global MORTON_CHUNKS and is part of
     the cache key: the call site passes the flag's live value, so
@@ -148,10 +148,10 @@ def look_at_rh(eye, center, up) -> jnp.ndarray:
 def transform_point(c2w: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     """Apply a [3,4] affine to [..., 3] points.
 
-    Written as broadcast multiply-adds, NOT a matmul: on TPU a [N,3]@[3,3]
-    contraction would ride the MXU at default (bfloat16) precision and
-    quantize ray directions to the bf16 grid; the VPU form is exact f32
-    and fuses into downstream intersection anyway.
+    Written as broadcast multiply-adds, NOT a matmul: an f32 contraction
+    at default precision may run in reduced precision on an accelerator
+    (TF32 on the GPU) and quantize ray directions; the elementwise form
+    is exact f32 and fuses into downstream intersection anyway.
     """
     return jnp.sum(p[..., None, :] * c2w[:, :3], axis=-1) + c2w[:, 3]
 

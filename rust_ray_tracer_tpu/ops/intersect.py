@@ -1,21 +1,24 @@
 """Closest-hit intersection over structure-of-arrays primitives.
 
 This replaces the reference's pointer-tree BVH recursion
-(``/root/reference/src/geometry/mod.rs:137-153``) with a TPU-native design:
+(the reference's ``src/geometry/mod.rs:137-153``) with a dense wavefront
+search:
 
-**Triangles ride the MXU.** The Möller–Trumbore quantities are scalar triple
-products, and every triple product needed is *linear* in the ray's Plücker
-features ``f = [o, d, o×d, 1]``:
+**Triangles are linear in the ray's Plücker features.** The
+Möller–Trumbore quantities are scalar triple products, and every one
+needed is *linear* in ``f = [o, d, o×d, 1]``:
 
     det   = [e1, d, e2] = -d·n                    (n = e1×e2)
     u_num = [o-v0, d, e2] = (o×d)·e2 - d·(e2×v0)
     v_num = [d, o-v0, e1] = -(o×d)·e1 - d·(v0×e1)
     t_num = [e2, o-v0, e1] = o·n - v0·n
 
-so testing C rays against T triangles is ONE ``[C,10] @ [10,4T]`` matmul —
-exactly what the 128x128 systolic array is for — followed by an elementwise
-mask + argmin. This is the wavefront layout the reference's own dead code was
-reaching for (``ray.rs:45-76``, flat ``bvh/mod.rs``), minus the pointer chase.
+so testing C rays against T triangles is a ``[C,10] @ [10,4T]``
+contraction followed by an elementwise mask + argmin — the wavefront
+layout the reference's own dead code was reaching for (``ray.rs:45-76``,
+flat ``bvh/mod.rs``), minus the pointer chase. On the GPU the same
+coefficients feed a fused Pallas kernel (``ops/tri_search.py``) that
+writes only the per-ray winners; elsewhere the contraction runs as XLA.
 
 **Selection is detached, values are recomputed.** Phase 1 (under
 ``stop_gradient``) finds the winning primitive per ray; phase 2 gathers the
@@ -46,6 +49,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from rust_ray_tracer_tpu.ops import linalg as la
+from rust_ray_tracer_tpu.ops import tri_search
 
 INF = jnp.float32(jnp.inf)
 TRI_DET_EPS = 1e-5      # triangle.rs:42
@@ -133,27 +137,18 @@ def _tri_valid(det, u, v, t, double, t_min, t_max, dn):
             & (t >= t_min) & (t <= t_max))
 
 
-def _tri_candidates(scene, feats, o, d, t_min, t_max):
-    """[C] best (t, index) over triangles.
-
-    On TPU the fused Pallas kernel does matmul + epilogue + argmin in
-    VMEM with Morton-cluster culling (ops/pallas_intersect.py); elsewhere
-    (CPU tests) the same math runs as plain XLA with materialized [C,T]
-    intermediates.
-    """
-    from rust_ray_tracer_tpu.ops import pallas_intersect as pk
-
-    det_c, u_c, v_c, t_c = _tri_coeffs(scene.tri_v0, scene.tri_e1,
-                                       scene.tri_e2)
-    if pk.on_tpu() and not _no_pallas():
-        return pk.tri_search(feats, det_c, u_c, v_c, t_c,
-                             scene.tri_double, t_min, t_max, o, d,
-                             scene.tri_cluster_min, scene.tri_cluster_max)
-
+def _tri_search_xla(scene, coeffs, o, d, t_min, t_max):
+    """[C] best (t, index) over triangles as plain XLA, materializing the
+    four [C,T] Plücker products. Ties go to the lowest index."""
+    det_c, u_c, v_c, t_c = coeffs
+    # HIGHEST: an f32 contraction on the GPU may otherwise run in TF32,
+    # whose 10-bit mantissa picks the wrong surface where two are close
+    # in t
     dot = partial(lax.dot_general,
                   dimension_numbers=(((1,), (0,)), ((), ())),
                   precision=lax.Precision.HIGHEST,
                   preferred_element_type=jnp.float32)
+    feats = _ray_features(o, d)
     det = dot(feats, det_c)
     u = la.safe_div(dot(feats, u_c), det)
     v = la.safe_div(dot(feats, v_c), det)
@@ -163,12 +158,30 @@ def _tri_candidates(scene, feats, o, d, t_min, t_max):
                        t_min[:, None], t_max[:, None], dn)
     tt = jnp.where(valid, t, INF)
     idx = jnp.argmin(tt, axis=1)
-    return jnp.take_along_axis(tt, idx[:, None], axis=1)[:, 0], idx
+    return (jnp.take_along_axis(tt, idx[:, None], axis=1)[:, 0],
+            idx.astype(jnp.int32))
 
 
-def _no_pallas() -> bool:
-    import os
-    return os.environ.get("RRT_NO_PALLAS", "") == "1"
+def _tri_search_kernel(scene, coeffs, o, d, t_min, t_max):
+    """The same contract through the fused GPU kernel (ops/tri_search)."""
+    tris = tri_search.pack_tris(*coeffs, scene.tri_double)
+    return tri_search.search(o, d, t_min, t_max, tris,
+                             scene.tri_cluster_min, scene.tri_cluster_max)
+
+
+def _tri_candidates(scene, o, d, t_min, t_max):
+    """[C] best (t, index) over triangles.
+
+    The GPU runs the fused kernel; every other platform runs the XLA
+    form. The choice is made when the program is lowered for its
+    platform, so a render placed on the CPU of a GPU host still takes
+    the XLA form, and a kernel failure on the GPU raises rather than
+    falling back.
+    """
+    coeffs = _tri_coeffs(scene.tri_v0, scene.tri_e1, scene.tri_e2)
+    return lax.platform_dependent(scene, coeffs, o, d, t_min, t_max,
+                                  cuda=_tri_search_kernel,
+                                  default=_tri_search_xla)
 
 
 def _sphere_roots(o, d, time, c0, c1, st0, st1, r):
@@ -190,17 +203,6 @@ def _sphere_roots(o, d, time, c0, c1, st0, st1, r):
 
 
 def _sph_candidates(scene, o, d, time, t_min, t_max):
-    from rust_ray_tracer_tpu.models.scene import CLUSTER
-    from rust_ray_tracer_tpu.ops import pallas_intersect as pk
-
-    # kernel pays only at cluster scale; for a handful of spheres
-    # (suzanne: one light) the fused XLA form is faster than the extra
-    # dispatch + mask pre-pass (measured: 63ms -> 109ms per wave when
-    # always-on)
-    if (scene.n_spheres >= CLUSTER and pk.on_tpu() and not _no_pallas()):
-        from rust_ray_tracer_tpu.ops.pallas_sphere import sph_search
-        return sph_search(scene, o, d, time, t_min, t_max)
-
     root1, root2, ok, _c = _sphere_roots(
         o[:, None, :], d[:, None, :], time[:, None],
         scene.sph_c0[None], scene.sph_c1[None],
@@ -227,13 +229,6 @@ def _quad_quants(o, d, q, u_e, v_e):
 
 
 def _quad_candidates(scene, o, d, t_min, t_max):
-    from rust_ray_tracer_tpu.models.scene import CLUSTER
-    from rust_ray_tracer_tpu.ops import pallas_intersect as pk
-
-    if (scene.n_quads >= CLUSTER and pk.on_tpu() and not _no_pallas()):
-        from rust_ray_tracer_tpu.ops.pallas_quad import quad_search
-        return quad_search(scene, o, d, t_min, t_max)
-
     t, alpha, beta, n, denom, _p = _quad_quants(
         o[:, None, :], d[:, None, :],
         scene.quad_q[None], scene.quad_u[None], scene.quad_v[None])
@@ -377,25 +372,24 @@ def _sphere_uv(p_unit):
     return phi / (2.0 * jnp.pi), theta / jnp.pi
 
 
-def hit_attrs_core(o, d, time, t_min, t_max, kind, flip,
-                   tri_pack, sph_pack, quad_pack, t_med):
+def hit_attrs_core(o, d, time, t_min, t_max, kind, flip, pack, t_med):
     """Differentiable hit attributes from the detached selection.
 
-    Pure function of per-ray gathered primitive packs (the gathers — and
-    therefore their scatter-add transposes — stay outside, in XLA):
-      tri_pack  [C,9]: v0, e1, e2
-      sph_pack  [C,9]: c0, c1, t0, t1, r
-      quad_pack [C,9]: q, u, v
-      t_med     [C]  : differentiable medium scatter distance
+    Pure function of the per-ray gathered winner pack (the gather — and
+    therefore its scatter-add transpose — stays outside):
+      pack  [C,9]: the winner's parameters, read per kind as
+                   tri v0, e1, e2 / sphere c0, c1, t0, t1, r / quad q, u, v
+                   (every kind's math is eps-guarded, so the other
+                   readings stay finite and the kind-select discards them)
+      t_med [C]  : differentiable medium scatter distance
       kind [C] int32 (KIND_*), flip [C] bool (selected primitive's flag)
 
-    Returns (t, p, normal, u, v). Used directly on CPU and as the
-    backward reference for the fused TPU kernel (ops/pallas_hit.py).
+    Returns (t, p, normal, u, v).
     """
     c = o.shape[0]
 
     # --- triangle (triangle.rs:38-69)
-    v0, e1, e2 = tri_pack[:, 0:3], tri_pack[:, 3:6], tri_pack[:, 6:9]
+    v0, e1, e2 = pack[:, 0:3], pack[:, 3:6], pack[:, 6:9]
     det, u_num, v_num, t_num, n = _tri_quants(o, d, v0, e1, e2)
     inv_det = la.safe_div(1.0, det)
     t_tri = t_num * inv_det
@@ -405,8 +399,8 @@ def hit_attrs_core(o, d, time, t_min, t_max, kind, flip,
 
     # --- sphere (sphere.rs:52-95, 145-148)
     root1, root2, ok, cen = _sphere_roots(
-        o, d, time, sph_pack[:, 0:3], sph_pack[:, 3:6],
-        sph_pack[:, 6], sph_pack[:, 7], sph_pack[:, 8])
+        o, d, time, pack[:, 0:3], pack[:, 3:6],
+        pack[:, 6], pack[:, 7], pack[:, 8])
     ok1 = ok & (root1 >= t_min) & (root1 <= t_max)
     t_sph = jnp.where(ok1, root1, root2)
     p_sph = o + t_sph[..., None] * d
@@ -414,7 +408,7 @@ def hit_attrs_core(o, d, time, t_min, t_max, kind, flip,
     # and 1e-40 overflows f32 to inf -> inf * 0 = NaN for lanes whose
     # unified pack presents a zero "radius" (e.g. a quad winner whose
     # v.z == 0). Bitwise no-op for any real sphere radius.
-    n_sph = (p_sph - cen) / jnp.maximum(sph_pack[:, 8], 1e-12)[..., None]
+    n_sph = (p_sph - cen) / jnp.maximum(pack[:, 8], 1e-12)[..., None]
     # UV quirk: near root uses the unit normal, far root world p
     # (sphere.rs:66-69 vs 80-82)
     uv_src = jnp.where(ok1[..., None], n_sph, p_sph)
@@ -422,7 +416,7 @@ def hit_attrs_core(o, d, time, t_min, t_max, kind, flip,
 
     # --- quad (aarect lowered)
     t_qud, a_qud, b_qud, nq, denom, p_qud = _quad_quants(
-        o, d, quad_pack[:, 0:3], quad_pack[:, 3:6], quad_pack[:, 6:9])
+        o, d, pack[:, 0:3], pack[:, 3:6], pack[:, 6:9])
     nq_hat = la.normalize(nq)
     n_qud = nq_hat * -jnp.sign(la.dot(d, nq_hat))[..., None]
 
@@ -457,50 +451,9 @@ def hit_attrs_core(o, d, time, t_min, t_max, kind, flip,
 # Entry point
 # ---------------------------------------------------------------------------
 
-def _search_order(o, d, t_min, t_max, cl_min, cl_max):
-    """[C] permutation for the phase-1 search: dead lanes (collapsed
-    t-window) last, alive lanes grouped by direction OCTANT then
-    Morton-ordered by origin within the scene's cluster bounds —
-    scattered bounce rays from the same surface region pointing the
-    same way land in the same kernel tile, shrinking each tile's
-    surviving-cluster union (see the call site).
-
-    The octant prefix exists for the post-bounce sweeps: round-4
-    bigmesh trace showed compacted bounce-1..3 search calls costing
-    3-10x a primary call (65-257 vs 20-40 ms) because diffuse bounce
-    rays share origins but point everywhere, making each origin-tile's
-    frustum a half-space. Direction-octant-major tiles have cone-like
-    frusta again. Primaries share one octant per tile anyway, so the
-    prefix is a no-op for them."""
-    lo = jnp.min(cl_min, axis=0)
-    hi = jnp.max(cl_max, axis=0)
-    q = jnp.clip((o - lo) / jnp.maximum(hi - lo, 1e-30), 0.0, 1.0)
-    qi = (q * 511.0).astype(jnp.uint32)
-
-    def spread(v):                     # 9 bits -> every 3rd bit
-        v = v & 0x1FF
-        v = (v | (v << 16)) & 0x030000FF
-        v = (v | (v << 8)) & 0x0300F00F
-        v = (v | (v << 4)) & 0x030C30C3
-        v = (v | (v << 2)) & 0x09249249
-        return v
-
-    oct_ = ((d[:, 0] < 0).astype(jnp.uint32)
-            | ((d[:, 1] < 0).astype(jnp.uint32) << 1)
-            | ((d[:, 2] < 0).astype(jnp.uint32) << 2))
-    code = ((oct_ << 27) | spread(qi[:, 0]) | (spread(qi[:, 1]) << 1)
-            | (spread(qi[:, 2]) << 2)).astype(jnp.int32)
-    key = jnp.where(t_max > t_min, code, jnp.int32(0x7FFFFFFF))
-    return jnp.argsort(key)
-
-
 class Select(NamedTuple):
-    """Detached phase-1 winner + differentiable per-ray parameter packs.
-
-    Everything ``intersect`` needs before the phase-2 attribute math —
-    shared by the split hit/shade pipeline and the fused bounce
-    megakernel (ops/pallas_bounce.py).
-    """
+    """Detached phase-1 winner + differentiable per-ray parameter packs:
+    everything ``intersect`` needs before the phase-2 attribute math."""
     hit: jnp.ndarray        # [C] bool
     kind: jnp.ndarray       # [C] int32 (KIND_*, detached)
     idx: jnp.ndarray        # [C] int32 (detached)
@@ -510,69 +463,16 @@ class Select(NamedTuple):
                             # unified across kinds (tri: v0,e1,e2 /
                             # sphere: c0,c1,t0,t1,r / quad: q,u,v); the
                             # consumer interprets by ``kind``
-                            # (pallas_hit.N_IN)
     t_med: jnp.ndarray      # [C] differentiable medium scatter t
     t_min: jnp.ndarray      # [C]
     t_max: jnp.ndarray      # [C]
-    attr: jnp.ndarray       # [C, A] winner material attrs (MATTR_*
-                            # columns), differentiable via tex/mat params
 
 
-# column layout of the per-material attribute rows (_mat_attr_table):
-# integer-valued columns (kind / checker flag) travel as exact small
-# floats so the whole row rides ONE f32 gather.
-# above this primitive count, phase 2 stops building the fused
-# [P, 11+A] row table per bounce (the build outweighs the gather
-# savings — see kind_rows in intersect_select); tests lower it to pin
-# both branches to identical outputs
+# above this primitive count, phase 2 stops building the fused [P, 11]
+# row table per bounce and gathers from the per-kind tables instead
+# (the per-bounce table build grows with P, the gather does not); tests
+# lower it to pin both branches to identical outputs
 FUSED_ROW_MAX = 65536
-
-MATTR_MKIND = 0
-MATTR_FUZZ = 1
-MATTR_IOR = 2
-MATTR_ALBEDO = slice(3, 6)     # solid leaf / checker base tex_color
-MATTR_EVEN = slice(6, 9)       # checker leaves (only when the scene
-MATTR_ODD = slice(9, 12)       # has checker textures; A grows 6 -> 13)
-MATTR_ISCHK = 12
-
-
-def _mat_attr_table(scene):
-    """[n_mats, A] per-material attribute rows (differentiable through
-    tex_color / fuzz / ior).
-
-    Round-4 suzanne hardware trace: the per-field winner gathers
-    (mat_kind[mat] s32 49us, tri_flip[i] pred 74us — packed-bit layout!
-    — tex/fuzz/ior chains ~40us more) cost ~300us of a ~540us live
-    chunk-bounce, and their transposes were 4 separate [C]->table
-    scatter-adds in the backward. Joining the material+texture chain at
-    TABLE level (n_mats rows, ~us) lets phase 2 fetch everything about
-    a winner in ONE wide f32 row gather per kind."""
-    f32 = scene.mat_fuzz.dtype
-    tid = scene.mat_tex
-    cols = [scene.mat_kind.astype(f32)[:, None],
-            scene.mat_fuzz[:, None], scene.mat_ior[:, None],
-            scene.tex_color[tid]]
-    if scene.tex_even.shape[0] > 0:
-        from rust_ray_tracer_tpu.models.scene import TEX_CHECKER
-        cols += [scene.tex_color[scene.tex_even[tid]],
-                 scene.tex_color[scene.tex_odd[tid]],
-                 (scene.tex_kind[tid] == TEX_CHECKER).astype(f32)[:, None]]
-    if scene.perlin_vec.shape[0] > 0:
-        # noise (marble) columns for the in-kernel eval (pallas_uber):
-        # the texture's frequency scale (differentiable — its cotangent
-        # rides the winner-row d_uni path) and an is-noise flag. Layout
-        # helper: mattr_noise_cols.
-        from rust_ray_tracer_tpu.models.scene import TEX_NOISE
-        cols += [scene.tex_scale[tid][:, None],
-                 (scene.tex_kind[tid] == TEX_NOISE).astype(f32)[:, None]]
-    return jnp.concatenate(cols, axis=1)
-
-
-def mattr_noise_cols(has_checker: bool):
-    """(scale_col, is_noise_col) positions in the _mat_attr_table row —
-    the noise block sits after the optional checker block."""
-    base = 6 + (7 if has_checker else 0)
-    return base, base + 1
 
 
 def intersect_select(scene, o, d, time, med_u=None, t_min=None,
@@ -590,9 +490,6 @@ def intersect_select(scene, o, d, time, med_u=None, t_min=None,
         lambda x: lax.stop_gradient(x) if isinstance(x, jnp.ndarray) else x,
         scene)
 
-    from rust_ray_tracer_tpu.models.scene import CLUSTER
-    from rust_ray_tracer_tpu.ops import pallas_intersect as pk
-
     best_t = jnp.full((c,), INF)
     best_kind = jnp.zeros((c,), jnp.int32)
     best_idx = jnp.zeros((c,), jnp.int32)
@@ -605,53 +502,18 @@ def intersect_select(scene, o, d, time, med_u=None, t_min=None,
         best_kind = jnp.where(better, kind, best_kind)
         best_idx = jnp.where(better, idx, best_idx)
 
-    # tris + sub-CLUSTER sphere/quad tables search in ONE kernel,
-    # cross-kind winner included (tie precedence tri > sphere > quad
-    # preserved in-kernel); larger sphere/quad tables keep their own
-    # cluster-culled kernels and fold via consider()
-    unified = (pk.UNIFIED and pk.on_tpu() and not _no_pallas()
-               and 0 < scene.n_spheres + scene.n_quads + scene.n_tris
-               and scene.n_spheres < CLUSTER and scene.n_quads < CLUSTER)
-    if unified:
-        # search-order compaction for big meshes: after a bounce, the
-        # few alive rays scatter over every 256-ray kernel tile, so
-        # every tile sweeps a huge cluster union (measured on 1M-tri
-        # MetalRoughSpheres: bounce 1 had 1098/9216 alive yet cost MORE
-        # than the 9216 primaries — 36 tiles x ~212 surviving clusters).
-        # Permuting rays (dead last, alive Morton-ordered by origin)
-        # packs the live rays into few spatially-tight tiles; the
-        # selection is un-permuted immediately, so phase 2 and the
-        # estimator never see the order. Detached phase -> semantically
-        # invisible; gated to big meshes (the sort costs ~the argsort of
-        # [C] keys per bounce, noise there, real money at suzanne size).
-        sort_rays = scene.n_tris >= pk.PACKED_MIN_TRIS
-        if sort_rays:
-            perm = _search_order(os, ds, t_min, t_max,
-                                 scene_s.tri_cluster_min,
-                                 scene_s.tri_cluster_max)
-            inv = jnp.argsort(perm)
-            bt_s, bk_s, bi_s = pk.fused_search(
-                scene_s, os[perm], ds[perm], ts[perm],
-                t_min[perm], t_max[perm])
-            best_t, best_kind, best_idx = bt_s[inv], bk_s[inv], bi_s[inv]
-        else:
-            best_t, best_kind, best_idx = pk.fused_search(
-                scene_s, os, ds, ts, t_min, t_max)
-    else:
-        if scene.n_tris:
-            feats = _ray_features(os, ds)
-            t_tri, i_tri = _tri_candidates(scene_s, feats, os, ds,
-                                           t_min, t_max)
-            consider(KIND_TRI, t_tri, i_tri.astype(jnp.int32))
-        if scene.n_spheres:
-            t_sph, i_sph = _sph_candidates(scene_s, os, ds, ts,
-                                           t_min, t_max)
-            consider(KIND_SPH, t_sph, i_sph.astype(jnp.int32))
-        if scene.n_quads:
-            t_qud, i_qud = _quad_candidates(scene_s, os, ds, t_min, t_max)
-            consider(KIND_QUAD, t_qud, i_qud.astype(jnp.int32))
+    if scene.n_tris:
+        t_tri, i_tri = _tri_candidates(scene_s, os, ds, t_min, t_max)
+        consider(KIND_TRI, t_tri, i_tri.astype(jnp.int32))
+    if scene.n_spheres:
+        t_sph, i_sph = _sph_candidates(scene_s, os, ds, ts, t_min, t_max)
+        consider(KIND_SPH, t_sph, i_sph.astype(jnp.int32))
+    if scene.n_quads:
+        t_qud, i_qud = _quad_candidates(scene_s, os, ds, t_min, t_max)
+        consider(KIND_QUAD, t_qud, i_qud.astype(jnp.int32))
     if scene.n_media:
-        assert med_u is not None, "scene has media: med_u uniforms required"
+        if med_u is None:
+            raise ValueError("scene has media: med_u uniforms required")
         t_med = _med_t(scene_s, os, ds, lax.stop_gradient(med_u), t_min,
                        t_max)
         i_med = jnp.argmin(t_med, axis=1)
@@ -668,37 +530,29 @@ def intersect_select(scene, o, d, time, med_u=None, t_min=None,
     # Tag the (detached, [C]-sized) selection as named rematerialization
     # residuals: under jax.checkpoint(policy=save_only_these_names(
     # 'isect_sel')) the backward pass re-runs only the cheap phase-2
-    # recompute and NEVER the candidate-search kernels. Saving these
-    # changes no values — phase 1 is deterministic and detached.
+    # recompute and NEVER the candidate search. Saving these changes no
+    # values — phase 1 is deterministic and detached.
     from jax.ad_checkpoint import checkpoint_name
     best_kind = checkpoint_name(best_kind, "isect_sel")
     best_idx = checkpoint_name(best_idx, "isect_sel")
     hit_mask = checkpoint_name(hit_mask, "isect_sel")
 
     # ---- phase 2: differentiable recompute of the winner ----
-    # ONE unified wide f32 row gather for every primitive kind: the
-    # per-kind tables (pack(9) | flip | mat-id | material attrs — see
-    # _mat_attr_table for the why and the measured gather costs) are
-    # concatenated into one [sum P_k, 11+A] table and the winner row is
-    # fetched by offset[kind] + idx. The 9-float pack is interpreted
-    # per kind downstream (ops/pallas_hit.N_IN — every sub-computation
-    # is eps-guarded, so non-winner interpretations are finite garbage
-    # the kind-select discards in both directions). flip / mat-id /
-    # mkind are exact small integers in f32.
+    # ONE wide f32 row gather for every primitive kind: the per-kind
+    # tables (pack(9) | flip | mat-id) are concatenated into one
+    # [sum P_k, 11] table and the winner row is fetched by
+    # offset[kind] + idx (one gather forward, one scatter-add backward).
+    # The 9-float pack is interpreted per kind downstream (every
+    # sub-computation is eps-guarded, so non-winner interpretations are
+    # finite garbage the kind-select discards in both directions).
+    # flip / mat-id are exact small integers in f32.
     f32 = o.dtype
-    matt = _mat_attr_table(scene)
-    ext_w = 2 + matt.shape[1]                # flip | mat id | attrs
-    # miss/none lanes default to material 0's attrs (what the old
-    # per-field gathers produced via the clamped index 0) — keeps the
-    # branchless material eval free of 0-ior/0-albedo poison values
-    ext = jnp.broadcast_to(
-        jnp.concatenate([jnp.zeros((2,), f32), matt[0]])[None],
-        (c, ext_w))
+    ext = jnp.zeros((c, 2), f32)             # flip | mat id
 
     def kind_table(pack_cols, flip_col, mat_col):
         return jnp.concatenate(
             [pack_cols, flip_col.astype(f32)[:, None],
-             mat_col.astype(f32)[:, None], matt[mat_col]], axis=1)
+             mat_col.astype(f32)[:, None]], axis=1)
 
     kind_cols = []
     if scene.n_tris:
@@ -726,7 +580,6 @@ def intersect_select(scene, o, d, time, med_u=None, t_min=None,
 
     total_rows = sum(kc[1].shape[0] for kc in kind_cols)
     if kind_cols and total_rows <= FUSED_ROW_MAX:
-        # one table, one gather, one backward scatter-add
         uni = jnp.concatenate(
             [kind_table(pc, fc, mc) for _, pc, fc, mc in kind_cols],
             axis=0)
@@ -742,51 +595,32 @@ def intersect_select(scene, o, d, time, med_u=None, t_min=None,
             prim = prim | (best_kind == kd)
         ext = jnp.where(prim[:, None], rows[:, 9:], ext)
     else:
-        # huge tables (1M-tri meshes): building a [P, 11+A] table per
-        # bounce costs more than it saves (measured: bigmesh step
-        # 1393.6 -> 1722.0 ms/wave when fused unconditionally) —
-        # per-kind pack + [P,2] flip/mat gathers from the raw tables,
-        # attrs from the tiny [n_mats, A] table
         for kd, pc, fc, mc in kind_cols:
             sel_k = best_kind == kd
             idx = jnp.where(sel_k, best_idx, 0)
-            if pc.shape[0] > FUSED_ROW_MAX:
-                fm = jnp.stack([fc.astype(f32), mc.astype(f32)],
-                               axis=1)[idx]
-                ext_k = jnp.concatenate(
-                    [fm, matt[fm[:, 1].astype(jnp.int32)]], axis=1)
-                pack_k = pc[idx]
-            else:
-                rows_k = kind_table(pc, fc, mc)[idx]
-                pack_k, ext_k = rows_k[:, :9], rows_k[:, 9:]
-            pack = jnp.where(sel_k[:, None], pack_k, pack)
-            ext = jnp.where(sel_k[:, None], ext_k, ext)
+            rows_k = kind_table(pc, fc, mc)[idx]
+            pack = jnp.where(sel_k[:, None], rows_k[:, :9], pack)
+            ext = jnp.where(sel_k[:, None], rows_k[:, 9:], ext)
     if scene.n_media:
         i_m = jnp.where(best_kind == KIND_MED, best_idx, 0)
-        med_row = jnp.concatenate(
-            [jnp.zeros((scene.n_media, 1), f32),
-             scene.med_mat.astype(f32)[:, None],
-             matt[scene.med_mat]], axis=1)[i_m]
+        med_row = jnp.stack(
+            [jnp.zeros((scene.n_media,), f32),
+             scene.med_mat.astype(f32)], axis=1)[i_m]
         ext = jnp.where((best_kind == KIND_MED)[:, None], med_row, ext)
     if t_med_best is None:
         t_med_best = jnp.zeros((c,), o.dtype)
 
     flip = ext[:, 0] > 0.5
     mat = ext[:, 1].astype(jnp.int32)
-    attr = ext[:, 2:]
 
-    # name the packed gathers as remat residuals. NOTE: "isect_packs" is
-    # NOT in the integrator's default save policy (SAVE_NAMES) — the
-    # residual ablation rejected it (materializing the packs lost to
-    # recomputing the gathers). The tags stay so the policy can be
-    # swept per workload via tools/ablate_residuals.py.
+    # named so a remat policy can choose to save the gathered packs
+    # (the integrator's default SAVE_NAMES does not)
     pack = checkpoint_name(pack, "isect_packs")
     t_med_best = checkpoint_name(t_med_best, "isect_packs")
-    attr = checkpoint_name(attr, "isect_packs")
 
     return Select(hit=hit_mask, kind=best_kind, idx=best_idx, mat=mat,
                   flip=flip, pack=pack, t_med=t_med_best,
-                  t_min=t_min, t_max=t_max, attr=attr)
+                  t_min=t_min, t_max=t_max)
 
 
 def intersect(scene, o, d, time, med_u=None, t_min=None, t_max=None) -> Hit:
@@ -806,23 +640,9 @@ def intersect(scene, o, d, time, med_u=None, t_min=None, t_max=None) -> Hit:
     from jax.ad_checkpoint import checkpoint_name
 
     sel = intersect_select(scene, o, d, time, med_u, t_min, t_max)
-    best_kind, flip = sel.kind, sel.flip
-    pack = sel.pack
-    t_med_best, t_min, t_max = sel.t_med, sel.t_min, sel.t_max
-
-    from rust_ray_tracer_tpu.ops import pallas_intersect as pk
-
-    if pk.on_tpu() and not _no_pallas():
-        from rust_ray_tracer_tpu.ops.pallas_hit import hit_attrs_fused
-        t, p, normal, uu, vv = hit_attrs_fused(
-            o, d, time, t_min, t_max, best_kind, flip, pack, t_med_best)
-    else:
-        # the unified pack feeds all three kind views; the eps-guarded
-        # math keeps non-winner interpretations finite and the final
-        # kind-select (zero cotangent in reverse) discards them
-        t, p, normal, uu, vv = hit_attrs_core(
-            o, d, time, t_min, t_max, best_kind, flip,
-            pack, pack, pack, t_med_best)
+    t, p, normal, uu, vv = hit_attrs_core(
+        o, d, time, sel.t_min, sel.t_max, sel.kind, sel.flip, sel.pack,
+        sel.t_med)
     t = checkpoint_name(t, "hit_attrs")
     p = checkpoint_name(p, "hit_attrs")
     normal = checkpoint_name(normal, "hit_attrs")

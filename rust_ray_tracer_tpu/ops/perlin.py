@@ -8,11 +8,10 @@ are seeded at scene compile time (the reference's are unseeded thread_rng —
 irreproducible by construction, so tests inject fixed tables instead of
 comparing images).
 
-Gather discipline (round-4 device trace, v5e): the obvious formulation —
-8 corners x 4 table lookups x 7 octaves unrolled in Python — compiles to
-~220 separate [C]-sized gather fusions per noise texture, each costing
-~75us of op-issue latency on the occupancy-bound scenes (they were the
-top XLA cost on ``random``, ~1.5ms per live chunk-bounce). Batched here:
+Gather discipline: the obvious formulation — 8 corners x 4 table
+lookups x 7 octaves unrolled in Python — compiles to ~220 separate
+[C]-sized gather fusions per noise texture, each paying its own launch.
+Batched here:
 all octaves' corner indices gather at once — 3 perm-table gathers of
 [..., D, 2] plus ONE gradient gather of [..., D, 8] per ``turb`` — and
 the per-corner/per-octave accumulation then walks Python loops over

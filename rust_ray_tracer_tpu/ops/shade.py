@@ -71,9 +71,7 @@ def shade(scene, key, d_in, time, hit, rand=None) -> Scatter:
 
     Randomness is drawn here (one uniform + one normal block — each
     threefry invocation is a separate hash sweep, so seven keyed draws
-    became two) and handed to the pure :func:`shade_core`; on TPU the
-    core runs as a fused Pallas kernel whose custom VJP re-runs this XLA
-    core (same random block -> identical sampled path -> exact grads).
+    became two) and handed to the pure :func:`shade_core`.
     """
     c = d_in.shape[0]
     f32 = d_in.dtype
@@ -84,14 +82,10 @@ def shade(scene, key, d_in, time, hit, rand=None) -> Scatter:
     albedo = checkpoint_name(
         texture_value(scene, tex, hit.u, hit.v, hit.p), "albedo")
 
-    from rust_ray_tracer_tpu.ops import pallas_intersect as pk
-    from rust_ray_tracer_tpu.ops.intersect import _no_pallas
-    import os
-    # the bounce's entire random budget, drawn with the SAME threefry
-    # streams on both backends — pallas and XLA renders follow identical
-    # sampled paths (tools/verify_pallas_parity.py gate A is bitwise-
-    # comparable end to end). Named as remat residuals: the backward
-    # reuses the blocks instead of re-sweeping threefry.
+    # the bounce's entire random budget, keyed by (wave, chunk, bounce)
+    # only, so every platform follows identical sampled paths. Named as
+    # remat residuals so a policy may reuse the blocks instead of
+    # re-sweeping threefry.
     if rand is None:
         ub = jax.random.uniform(rngu.stream(key, rngu.SCATTER), (c, 9),
                                 dtype=f32)
@@ -101,11 +95,6 @@ def shade(scene, key, d_in, time, hit, rand=None) -> Scatter:
         ub, gb = rand
     ub = checkpoint_name(ub, "shade_rand")
     gb = checkpoint_name(gb, "shade_rand")
-    if (pk.on_tpu() and not _no_pallas()
-            and os.environ.get("RRT_NO_PALLAS_SHADE", "") != "1"):
-        from rust_ray_tracer_tpu.ops.pallas_shade import shade_fused
-        return shade_fused(scene, d_in, hit.p, hit.normal, albedo, kind,
-                           mat_pack[:, 0], mat_pack[:, 1], ub, gb)
     return shade_core(scene, d_in, hit.p, hit.normal, albedo, kind,
                       mat_pack[:, 0], mat_pack[:, 1], ub, gb)
 
@@ -134,8 +123,6 @@ def shade_core(scene, d_in, p, normal, albedo, kind, fuzz, ior,
     g_iso = gb[:, 3:6]
     u_fuzz_r = ub[:, 7]
     u_iso_r = ub[:, 8]
-
-
 
     # =======================================================================
     # Lambertian (material/mod.rs:47-84) + the ray_color mixture

@@ -1,11 +1,11 @@
-"""Multi-chip / multi-host parallel rendering.
+"""Multi-device / multi-host parallel rendering.
 
-TPU-native replacement for the reference's parallelism layer — rayon
-row-parallelism merged through a ``Mutex<RgbImage>``
-(``/root/reference/src/main.rs:84-112``). Here the ray/pixel-chunk axis is
-sharded over a ``jax.sharding.Mesh`` with ``shard_map``; each chip owns its
-pixel chunks (no mutex, no merging), the scene is replicated, and parameter
-gradients are ``psum``-reduced over ICI by shard_map's transpose rule.
+Replacement for the reference's parallelism layer — rayon row-parallelism
+merged through a ``Mutex<RgbImage>`` (reference ``src/main.rs:84-112``).
+Here the ray/pixel-chunk axis is sharded over a ``jax.sharding.Mesh`` with
+``shard_map``; each device owns its pixel chunks (no mutex, no merging), the
+scene is replicated, and parameter gradients are ``psum``-reduced by
+shard_map's transpose rule.
 """
 
 from rust_ray_tracer_tpu.parallel.mesh import (  # noqa: F401

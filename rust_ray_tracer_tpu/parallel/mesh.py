@@ -1,11 +1,12 @@
 """Device mesh construction and multi-host initialization.
 
 The reference's "cluster init" is a rayon thread-pool sized by ``-t``
-(``/root/reference/src/main.rs:44-49``). The TPU counterpart is a 1-D
-``jax.sharding.Mesh`` over every addressable chip (the ``"rays"`` axis —
-pixel chunks shard over it), plus ``jax.distributed.initialize`` when
-spanning hosts so all chips of a pod slice join one mesh and collectives
-ride ICI.
+(reference ``src/main.rs:44-49``). Here it is a 1-D
+``jax.sharding.Mesh`` over the addressable devices in ``jax.devices()``
+order (the ``"rays"`` axis — pixel chunks shard over it), plus
+``jax.distributed.initialize`` when spanning hosts so every device joins
+one mesh. The cards of a host reach each other all to all, so the mesh
+follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -22,14 +23,13 @@ RAY_AXIS = "rays"
 def multihost_init(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None) -> None:
-    """Join a multi-host run (jax.distributed). No-op if already up or
-    single-host with no coordinator configured."""
-    try:
-        jax.distributed.initialize(coordinator_address=coordinator_address,
-                                   num_processes=num_processes,
-                                   process_id=process_id)
-    except (RuntimeError, ValueError):
-        pass  # already initialized or single-process
+    """Join a multi-process run (``jax.distributed``). A no-op when this
+    process already joined; every other failure propagates."""
+    if jax.distributed.is_initialized():
+        return
+    jax.distributed.initialize(coordinator_address=coordinator_address,
+                               num_processes=num_processes,
+                               process_id=process_id)
 
 
 def make_mesh(devices: Optional[Sequence[jax.Device]] = None,

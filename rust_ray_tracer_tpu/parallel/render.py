@@ -11,8 +11,8 @@ Design (SURVEY.md §2 "Parallelism & communication"):
     render is exactly ZERO (the reference serialized every pixel write
     through a ``Mutex``, main.rs:84-112);
   * under ``jax.grad``, shard_map's transpose turns the replicated scene
-    into a ``psum`` of per-device scene cotangents over ICI — the
-    "gradient all-reduce" of BASELINE.json, generated by the compiler;
+    into a ``psum`` of per-device scene cotangents — the gradient
+    all-reduce, generated by the compiler (NCCL on GPUs);
   * round-robin chunk dealing means the padded tail chunk is the only
     imbalance: work is within one chunk of perfectly even.
 
@@ -22,9 +22,9 @@ so every pixel's value is the sum of its own chunks only. Renders are
 bitwise identical across device counts D >= 2 (every mesh size compiles
 the same shard body). Against the SEQUENTIAL renderer the guarantee is
 weaker for triangle scenes: XLA may fuse the [C,10]@[10,4T] Plücker
-matmul differently inside shard_map than in the plain program,
+contraction differently inside shard_map than in the plain program,
 reassociating the 10-term dot — observed <=5e-6 drift on ~3% of pixels
-(tests/test_composite.py pins it). Sphere/quad-only scenes have stayed
+on the CPU (tests/test_composite.py pins it). Sphere/quad-only scenes have stayed
 bitwise vs sequential in practice (tests/test_parallel.py).
 """
 
@@ -37,10 +37,7 @@ import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # jax < 0.8
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from rust_ray_tracer_tpu.ops.integrator import MAX_DEPTH, render_chunk
 from rust_ray_tracer_tpu.utils import rng as rngu

@@ -3,8 +3,8 @@
 Counterpart of the reference binary (``/root/reference/src/main.rs:26-118``
 + ``README.md:11-30``): positional HEIGHT and SAMPLES, ``-o`` output PNG,
 ``-g`` glTF input, ``-a`` aspect ratio. The reference's ``-t`` threads
-(rayon pool size) maps to ``--devices`` (TPU mesh size, default: all
-chips). Its compile-time constants become real flags: ``--depth``
+(rayon pool size) maps to ``--devices`` (device mesh size, default: all
+devices). Its compile-time constants become real flags: ``--depth``
 (MAX_DEPTH=4, main.rs:56), ``--scene`` (USE_GLTF=true hardcode, main.rs:67
 — procedural scenes were only reachable by editing the source), plus
 ``--seed`` (the reference is unseeded), and checkpoint/resume flags (no
@@ -17,7 +17,6 @@ indicatif bar per row, main.rs:59-64).
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import time
 
@@ -25,7 +24,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rust_ray_tracer_tpu",
-        description="TPU-native differentiable wavefront path tracer")
+        description="differentiable wavefront path tracer")
     p.add_argument("height", type=int, nargs="?", default=256,
                    help="image height in pixels (reference positional 1)")
     p.add_argument("samples", type=int, nargs="?", default=16,
@@ -44,7 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0,
                    help="render seed (bitwise-reproducible)")
     p.add_argument("--devices", type=int, default=None,
-                   help="number of chips to shard rays over "
+                   help="number of devices to shard rays over "
                         "(default: all available)")
     p.add_argument("--chunk-size", type=int, default=32768,
                    help="rays per wavefront chunk")
@@ -52,9 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
                    nargs="?", const="on", default="auto",
                    help="bounce-major cross-chunk alive compaction: "
                         "'auto' (default) enables it when the scene "
-                        "covers most of the camera frame (measured to "
-                        "win only on such occupancy-bound scenes — "
-                        "ops/integrator.auto_compact); shard-local "
+                        "covers most of the camera frame "
+                        "(ops/integrator.auto_compact); shard-local "
                         "under a device mesh")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint file for resumable rendering")
@@ -66,8 +64,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-host coordinator address (host:port)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
-    p.add_argument("--cache-dir", default=None,
-                   help="persistent XLA compile cache directory")
     return p
 
 
@@ -75,12 +71,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     import jax
-
-    if args.cache_dir:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.abspath(args.cache_dir))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
     import numpy as np
 
     from rust_ray_tracer_tpu.models import builders
@@ -91,6 +81,9 @@ def main(argv=None) -> int:
     from rust_ray_tracer_tpu.parallel.checkpoint import (
         render_with_checkpoints)
     from rust_ray_tracer_tpu.utils.image import save_png
+    from rust_ray_tracer_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.coordinator or (args.num_processes or 0) > 1:
         multihost_init(args.coordinator, args.num_processes, args.process_id)

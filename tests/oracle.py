@@ -8,9 +8,11 @@ formulation computes the same light transport (SURVEY.md §7 "recursion ->
 iteration fidelity"). Reads primitives from a compiled SceneData (numpy
 views), samples with an independent numpy Generator.
 
-Supports: triangles, spheres (static), quads, Lambertian (with the 50/50
+Supports: triangles, spheres (static), quads, constant media with a
+sphere boundary (Isotropic phase), Lambertian (with the 50/50
 light-mixture importance sampling), Metal, Dielectric, DiffuseLight,
-background. No media/motion blur (keep oracle scenes simple).
+solid / checker / marble-noise textures, background. No image textures or
+motion blur (keep oracle scenes simple).
 """
 
 from __future__ import annotations
@@ -33,6 +35,12 @@ class Oracle:
             g, (sd.tri_v0, sd.tri_e1, sd.tri_e2))
         self.tri_mat = g(sd.tri_mat)
         self.tri_double = g(sd.tri_double)
+        # drop the zero-edge pad triangles (they can never hit)
+        real = (np.abs(self.tri_e1).sum(1) + np.abs(self.tri_e2).sum(1)) > 0
+        self.tri_v0, self.tri_e1, self.tri_e2, self.tri_mat, \
+            self.tri_double = (x[real] for x in (
+                self.tri_v0, self.tri_e1, self.tri_e2, self.tri_mat,
+                self.tri_double))
         self.sph_c = g(sd.sph_c0)
         self.sph_r = g(sd.sph_r)
         self.sph_mat = g(sd.sph_mat)
@@ -45,6 +53,17 @@ class Oracle:
         self.mat_fuzz = g(sd.mat_fuzz)
         self.mat_ior = g(sd.mat_ior)
         self.tex_color = g(sd.tex_color)
+        self.tex_kind = g(sd.tex_kind)
+        self.tex_scale = g(sd.tex_scale)
+        self.tex_even = g(sd.tex_even)
+        self.tex_odd = g(sd.tex_odd)
+        self.perlin = tuple(map(g, (sd.perlin_vec, sd.perlin_px,
+                                    sd.perlin_py, sd.perlin_pz)))
+        self.med_c = g(sd.med_c)
+        self.med_r = g(sd.med_r)
+        self.med_neg_inv_d = g(sd.med_neg_inv_d)
+        self.med_mat = g(sd.med_mat)
+        self.med_kind = g(sd.med_kind)
         self.light_kind = g(sd.light_kind)
         self.light_c = g(sd.light_c)
         self.light_r = g(sd.light_r)
@@ -130,6 +149,74 @@ class Oracle:
                 best = (t, o + t * d, nh, self.quad_mat[i], False)
         return best
 
+    def medium_hit(self, o, d, rng, t_min=T_MIN):
+        """Closest constant-medium scatter (constant_medium.rs:46-80):
+        boundary roots over (-inf, inf), clamp to t_min, exponential free
+        flight. Returns (t, mat) or None. Sphere boundaries only."""
+        best = None
+        for i in range(len(self.med_c)):
+            if self.med_kind[i] != 0:
+                raise NotImplementedError("oracle media: spheres only")
+            oc = o - self.med_c[i]
+            a = d @ d
+            b = oc @ d
+            cc = oc @ oc - self.med_r[i] ** 2
+            disc = b * b - a * cc
+            u = rng.random()
+            if disc <= 0:
+                continue
+            sq = np.sqrt(disc)
+            t1 = max((-b - sq) / a, t_min)
+            t2 = (-b + sq) / a
+            if t1 >= t2:
+                continue
+            t1 = max(t1, 0.0)
+            ray_len = np.sqrt(a)
+            hit_dist = self.med_neg_inv_d[i] * np.log(max(u, 1e-30))
+            if hit_dist > (t2 - t1) * ray_len:
+                continue
+            t = t1 + hit_dist / ray_len
+            if best is None or t < best[0]:
+                best = (t, self.med_mat[i])
+        return best
+
+    # ---- textures (texture.rs) ------------------------------------------
+    def _noise(self, p):
+        vec, px, py, pz = self.perlin
+        pf = np.floor(p)
+        u, v, w = p - pf
+        i, j, k = (int(x) for x in pf)
+        uu, vv, ww = (x * x * (3 - 2 * x) for x in (u, v, w))
+        acc = 0.0
+        for di in range(2):
+            for dj in range(2):
+                for dk in range(2):
+                    h = (px[(i + di) & 255] ^ py[(j + dj) & 255]
+                         ^ pz[(k + dk) & 255])
+                    acc += ((di * uu + (1 - di) * (1 - uu))
+                            * (dj * vv + (1 - dj) * (1 - vv))
+                            * (dk * ww + (1 - dk) * (1 - ww))
+                            * (vec[h] @ np.array([u - di, v - dj, w - dk])))
+        return acc
+
+    def texture(self, tid, p):
+        kind = self.tex_kind[tid]
+        if kind == 1:       # checker (texture.rs:50-57)
+            sines = np.sin(10 * p[0]) * np.sin(10 * p[1]) * np.sin(10 * p[2])
+            return self.texture(
+                self.tex_odd[tid] if sines < 0 else self.tex_even[tid], p)
+        if kind == 2:       # marble (texture.rs:74-82, perlin.rs:58-71)
+            acc, wgt, tp = 0.0, 1.0, p.copy()
+            for _ in range(7):
+                acc += wgt * self._noise(tp)
+                wgt *= 0.5
+                tp = tp * 2
+            return np.full(3, 0.5 * (1 + np.sin(self.tex_scale[tid] * p[2]
+                                                + 10 * abs(acc))))
+        if kind == 3:
+            raise NotImplementedError("oracle: no image textures")
+        return self.tex_color[tid]
+
     # ---- light sampling (pdf.rs + sphere.rs:101-119, aarect.rs:123-143)
     def lights_pdf(self, origin, direction):
         vals = []
@@ -203,11 +290,23 @@ class Oracle:
         if depth <= 0:
             return np.zeros(3)
         rec = self.hit(o, d)
+        if len(self.med_c):
+            med = self.medium_hit(o, d, rng)
+            if med is not None and (rec is None or med[0] < rec[0]):
+                # Isotropic (material/mod.rs:196-216): specular scatter
+                # into a uniform-ball direction, attenuation = albedo
+                p = o + med[0] * d
+                while True:
+                    v = rng.random(3) * 2 - 1
+                    if v @ v < 1:
+                        break
+                albedo = self.texture(self.mat_tex[med[1]], p)
+                return albedo * self.ray_color(p, v, depth - 1, rng)
         if rec is None:
             return self.background.copy()
         t, p, n, mat, _ = rec
         kind = self.mat_kind[mat]
-        color = self.tex_color[self.mat_tex[mat]]
+        color = self.texture(self.mat_tex[mat], p)
         unit_d = _norm(d)
 
         if kind == 3:   # DiffuseLight: emit iff front face, path ends

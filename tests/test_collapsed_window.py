@@ -3,9 +3,9 @@
 every search backend.
 
 The wavefront integrator encodes dead lanes as ``t_max = -1`` and relies
-on every kernel — the XLA candidate paths, the unified fused-search
-kernel, the standalone sphere/quad kernels and the cluster mask pre-pass
-— rejecting every primitive kind under that window (reference contract:
+on every search — the XLA candidate paths and the GPU triangle kernel
+(run here in interpret mode) — rejecting every primitive kind under that
+window (reference contract:
 ``geometry/mod.rs:137-153`` passes a shrinking ``t_max`` and
 ``constant_medium.rs:46-80`` clamps the exit by it). This file pins the
 invariant per kind per backend, plus lane isolation: collapsing one
@@ -18,7 +18,8 @@ import pytest
 
 from rust_ray_tracer_tpu.models import scene as S
 from rust_ray_tracer_tpu.models.scene import compile_scene
-from rust_ray_tracer_tpu.ops import pallas_intersect as pim
+from rust_ray_tracer_tpu.ops import intersect as it
+from rust_ray_tracer_tpu.ops import tri_search
 from rust_ray_tracer_tpu.ops.camera import make_camera
 from rust_ray_tracer_tpu.ops.intersect import intersect, intersect_select
 
@@ -82,103 +83,67 @@ def test_xla_collapsed_window_rejects_medium():
     assert not bool(h_dead.hit[0]), "medium: collapsed window must miss"
 
 
-class TestFusedSearchKernel:
-    """Unified Pallas search kernel (interpret mode): per-kind rejection
-    + lane isolation under mixed alive/dead windows."""
+def _mixed_scene():
+    return make([
+        S.Triangle((-1, -1, -4), (1, -1, -4), (0, 1, -4), MAT,
+                   double_sided=True),
+        S.Sphere((3, 0, -5), 1.0, MAT),
+        S.XZRect(2, 4, -6, -4, -0.5, MAT),
+    ])
 
-    @pytest.fixture(autouse=True)
-    def interpret(self):
-        pim.INTERPRET = True
-        yield
-        pim.INTERPRET = False
 
-    def _mixed_scene(self):
-        # tri + sphere + quad in one scene -> unified kernel covers all
-        # three kinds in a single launch
-        return make([
-            S.Triangle((-1, -1, -4), (1, -1, -4), (0, 1, -4), MAT,
-                       double_sided=True),
-            S.Sphere((3, 0, -5), 1.0, MAT),
-            S.XZRect(2, 4, -6, -4, -0.5, MAT),
-        ])
+# 4 lanes: hits tri, hits sphere, hits quad (from above), stray
+_O = [[0, 0, 0], [3, 0, 0], [3, 2, -5], [0, 5, 5]]
+_D = [[0, 0, -1], [0, 0, -1], [0, -1, 0], [0, 1, 0]]
+
+
+class TestSelectLaneIsolation:
+    """intersect_select with mixed alive/dead windows: a collapsed lane
+    misses, and collapsing it perturbs no other lane's winner."""
 
     def test_collapsed_rejects_and_lanes_isolated(self):
-        sc = self._mixed_scene()
-        # 4 lanes: hits tri, hits sphere, hits quad (from above), stray
-        o = jnp.asarray([[0, 0, 0], [3, 0, 0], [3, 2, -5], [0, 5, 5]],
-                        jnp.float32)
-        d = jnp.asarray([[0, 0, -1], [0, 0, -1], [0, -1, 0], [0, 1, 0]],
-                        jnp.float32)
+        sc = _mixed_scene()
+        o = jnp.asarray(_O, jnp.float32)
+        d = jnp.asarray(_D, jnp.float32)
         tm = jnp.zeros(4)
-        t_min = jnp.full(4, 1e-4)
         open_w = jnp.full(4, jnp.inf)
-
-        bt0, bk0, bi0 = pim.fused_search(sc, o, d, tm, t_min, open_w)
-        assert np.isfinite(np.asarray(bt0[:3])).all(), "setup must hit"
-
-        # collapse each hitting lane in turn: that lane must miss, the
-        # OTHER lanes' winners must be bitwise unchanged (no cross-lane
-        # winner update from a dead lane)
+        s0 = intersect_select(sc, o, d, tm, t_max=open_w)
+        assert np.asarray(s0.hit)[:3].all(), "setup must hit"
         for dead in range(3):
-            t_max = open_w.at[dead].set(-1.0)
-            bt, bk, bi = pim.fused_search(sc, o, d, tm, t_min, t_max)
-            assert not np.isfinite(float(bt[dead])), f"lane {dead}"
+            s = intersect_select(sc, o, d, tm, t_max=open_w.at[dead].set(-1))
+            assert not bool(s.hit[dead]), f"lane {dead}"
             keep = np.asarray([i for i in range(4) if i != dead])
-            np.testing.assert_array_equal(np.asarray(bt)[keep],
-                                          np.asarray(bt0)[keep])
-            np.testing.assert_array_equal(np.asarray(bk)[keep],
-                                          np.asarray(bk0)[keep])
-            np.testing.assert_array_equal(np.asarray(bi)[keep],
-                                          np.asarray(bi0)[keep])
+            for f in ("hit", "kind", "idx"):
+                np.testing.assert_array_equal(
+                    np.asarray(getattr(s, f))[keep],
+                    np.asarray(getattr(s0, f))[keep], err_msg=f)
+        s = intersect_select(sc, o, d, tm, t_max=jnp.full(4, -1.0))
+        assert not np.asarray(s.hit).any()
 
-        # all lanes dead: nothing survives
-        bt, bk, bi = pim.fused_search(sc, o, d, tm, t_min,
-                                      jnp.full(4, -1.0))
-        assert not np.isfinite(np.asarray(bt)).any()
-
-    def test_mask_prepass_collapsed_rejects(self):
-        sc = self._mixed_scene()
-        n = pim.BC                      # mask pre-pass works per ray tile
-        o = jnp.zeros((n, 3), jnp.float32)
-        d = jnp.broadcast_to(jnp.asarray([0.0, 0.0, -1.0]), (n, 3))
-        m_open = pim._tile_cluster_mask(
-            o, d, sc.tri_cluster_min, sc.tri_cluster_max,
-            jnp.full(n, 1e-4), jnp.full(n, jnp.inf))
-        assert bool(np.asarray(m_open).any()), "setup: cluster must enter"
-        m_dead = pim._tile_cluster_mask(
-            o, d, sc.tri_cluster_min, sc.tri_cluster_max,
-            jnp.full(n, 1e-4), jnp.full(n, -1.0))
-        assert not bool(np.asarray(m_dead).any())
-
-
-class TestStandaloneKernels:
-    """sph_search / quad_search (the >= CLUSTER table paths)."""
-
-    @pytest.fixture(autouse=True)
-    def interpret(self):
-        pim.INTERPRET = True
-        yield
-        pim.INTERPRET = False
-
-    def test_sphere_kernel(self):
-        sc = make([S.Sphere((0, 0, -5), 1.0, MAT)])
-        from rust_ray_tracer_tpu.ops.pallas_sphere import sph_search
-        o = jnp.zeros((2, 3))
-        d = jnp.broadcast_to(jnp.asarray([0.0, 0.0, -1.0]), (2, 3))
-        tm = jnp.zeros(2)
-        t_min = jnp.full(2, 1e-4)
-        t, _ = sph_search(sc, o, d, tm, t_min,
-                          jnp.asarray([jnp.inf, -1.0]))
-        assert np.isfinite(float(t[0])) and not np.isfinite(float(t[1]))
-
-    def test_quad_kernel(self):
-        sc = make([S.XZRect(-1, 1, -6, -4, -0.5, MAT)])
-        from rust_ray_tracer_tpu.ops.pallas_quad import quad_search
-        o = jnp.zeros((2, 3))
-        d = jnp.broadcast_to(jnp.asarray([0.0, -0.5, -5.0]), (2, 3))
-        t_min = jnp.full(2, 1e-4)
-        t, _ = quad_search(sc, o, d, t_min, jnp.asarray([jnp.inf, -1.0]))
-        assert np.isfinite(float(t[0])) and not np.isfinite(float(t[1]))
+    @pytest.mark.parametrize("search", ["xla", "kernel"])
+    def test_triangle_search_collapsed_lanes(self, search):
+        """The triangle search alone, both forms: dead lanes miss and the
+        live lane's winner is unchanged."""
+        sc = _mixed_scene()
+        o = jnp.asarray(_O, jnp.float32)
+        d = jnp.asarray(_D, jnp.float32)
+        t_min = jnp.full(4, 1e-4)
+        coeffs = it._tri_coeffs(sc.tri_v0, sc.tri_e1, sc.tri_e2)
+        if search == "xla":
+            run = lambda tmax: it._tri_search_xla(  # noqa: E731
+                sc, coeffs, o, d, t_min, tmax)
+        else:
+            tris = tri_search.pack_tris(*coeffs, sc.tri_double)
+            run = lambda tmax: tri_search.search(  # noqa: E731
+                o, d, t_min, tmax, tris, sc.tri_cluster_min,
+                sc.tri_cluster_max, interpret=True)
+        t0, i0 = run(jnp.full(4, jnp.inf))
+        assert np.isfinite(float(t0[0])), "setup: lane 0 hits the triangle"
+        t1, i1 = run(jnp.asarray([jnp.inf, -1.0, -1.0, -1.0]))
+        assert float(t1[0]) == float(t0[0]) and int(i1[0]) == int(i0[0])
+        assert not np.isfinite(np.asarray(t1[1:])).any()
+        t2, _ = run(jnp.full(4, -1.0))
+        assert not np.isfinite(np.asarray(t2)).any()
 
 
 def test_select_collapsed_all_kinds_one_scene():

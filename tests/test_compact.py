@@ -92,31 +92,6 @@ def test_compact_grads_match():
     assert nonzero >= 4
 
 
-def test_compact_with_megakernel_interpret():
-    """compact=True routes through _bounce, which picks the fused bounce
-    megakernel when the Pallas path is on — the combination must match
-    the plain per-chunk XLA render (same sampled paths)."""
-    from rust_ray_tracer_tpu.ops import pallas_bounce as pb
-    from rust_ray_tracer_tpu.ops import pallas_intersect as pim
-
-    sd = occupancy_scene()
-    assert pb.eligible(sd)
-    key = jax.random.PRNGKey(13)
-    ref = np.asarray(render_waves(sd, 48, 32, key, 0, 1, chunk_size=256))
-
-    real_on_tpu = pim.on_tpu
-    pim.INTERPRET = True
-    pim.on_tpu = lambda: True
-    try:
-        got = np.asarray(render_waves(sd, 48, 32, key, 0, 1,
-                                      chunk_size=256, compact=True))
-    finally:
-        pim.on_tpu = real_on_tpu
-        pim.INTERPRET = False
-    assert np.isfinite(got).all()
-    np.testing.assert_allclose(got, ref, rtol=3e-4, atol=3e-5)
-
-
 def test_compact_sharded_matches_sequential():
     """Shard-local compaction over an 8-device CPU mesh reproduces the
     sequential compact render (per-ray randomness keyed by global chunk
@@ -137,66 +112,6 @@ def test_compact_sharded_matches_sequential():
     np.testing.assert_allclose(shd, seq, atol=5e-6, rtol=1e-4)
 
 
-@pytest.mark.slow
-def test_compact_megakernel_grads_interpret():
-    """Gradients through compact + fused-bounce megakernel match the
-    plain per-chunk XLA path."""
-    from rust_ray_tracer_tpu.ops import pallas_intersect as pim
-
-    sd = occupancy_scene()
-    key = jax.random.PRNGKey(17)
-    diff, static = partition(sd)
-
-    def loss(diff, compact):
-        img = render_waves(combine(diff, static), 16, 12, key, 0, 1,
-                           chunk_size=192, compact=compact)
-        return jnp.mean(img)
-
-    g_ref = jax.grad(lambda d: loss(d, False))(diff)
-    real_on_tpu = pim.on_tpu
-    pim.INTERPRET = True
-    pim.on_tpu = lambda: True
-    try:
-        g_got = jax.grad(lambda d: loss(d, True))(diff)
-    finally:
-        pim.on_tpu = real_on_tpu
-        pim.INTERPRET = False
-    for name in ("tex_color", "sph_c0", "mat_fuzz", "background",
-                 "light_q"):
-        np.testing.assert_allclose(np.asarray(getattr(g_got, name)),
-                                   np.asarray(getattr(g_ref, name)),
-                                   rtol=5e-4, atol=1e-6, err_msg=name)
-
-
-def test_compact_with_shade_update_fused_interpret():
-    """compact + the partial megakernel (noise albedo in XLA, fused
-    shade/update) — the random-scene combination on hardware."""
-    from rust_ray_tracer_tpu.ops import pallas_bounce as pb
-    from rust_ray_tracer_tpu.ops import pallas_intersect as pim
-
-    cam = make_camera(np.eye(3, 4, dtype=np.float32), 60.0, 1.0)
-    sd = compile_scene(S.Scene(cam, [
-        S.Sphere((0, -101, -4), 100.0, S.Lambertian(S.Noise(4.0))),
-        S.Sphere((0, 0, -4), 1.0, S.Lambertian.from_rgb(0.5, 0.4, 0.3)),
-        S.Sphere((-2.2, 0, -4), 1.0, S.Metal((0.8, 0.8, 0.9), 0.1)),
-    ], [], (0.7, 0.8, 1.0)))
-    assert not pb.eligible(sd) and pb.su_eligible(sd)
-    key = jax.random.PRNGKey(29)
-    ref = np.asarray(render_waves(sd, 48, 32, key, 0, 1, chunk_size=256))
-
-    real_on_tpu = pim.on_tpu
-    pim.INTERPRET = True
-    pim.on_tpu = lambda: True
-    try:
-        got = np.asarray(render_waves(sd, 48, 32, key, 0, 1,
-                                      chunk_size=256, compact=True))
-    finally:
-        pim.on_tpu = real_on_tpu
-        pim.INTERPRET = False
-    assert np.isfinite(got).all()
-    np.testing.assert_allclose(got, ref, rtol=3e-4, atol=3e-5)
-
-
 def test_compact_proc_chunk_invariance():
     """The processing-chunk size is a pure scheduling knob: randomness
     and primaries stay keyed by the original RNG chunk, so the image is
@@ -214,15 +129,10 @@ def test_compact_proc_chunk_invariance():
 
 
 class TestAutoCompact:
-    """integrator.auto_compact picks the measured winner per scene class
-    (v5e 2026-08-19/20, tools/r4_compact_check + tools/bench_scenes +
-    tools/r5_compact_cornell): compaction wins on frame-filling
-    occupancy-bound scenes that can't route to the whole-wave uber
-    kernel (random 1.38-1.5x, MetalRoughSpheres-1M 1.07x), loses on
-    small-object-in-a-void scenes (suzanne 1.8x SLOWER), and loses by
-    an order of magnitude against the uber route wherever that is
-    eligible (cornell_box step 9.3 uber vs 127.0 compact ms/wave) —
-    so uber eligibility on TPU short-circuits the probe to False."""
+    """integrator.auto_compact turns compaction on for frame-filling,
+    occupancy-bound scenes (most primaries hit and keep scattering) and
+    off for small objects in a void (most primaries miss and die at
+    bounce 0, so the permutation gathers buy nothing)."""
 
     def test_frame_filling_scene_on(self):
         from rust_ray_tracer_tpu.ops.integrator import auto_compact
@@ -233,35 +143,15 @@ class TestAutoCompact:
         from rust_ray_tracer_tpu.ops.integrator import auto_compact
         for name in ("random", "cornell_box", "final_scene"):
             sd = compile_scene(builders.get_scene(name, 16 / 9))
-            # CPU path (tests force CPU): the occupancy probe decides
             assert auto_compact(sd) is True, name
 
-    def test_uber_eligibility_short_circuits_on_tpu(self, monkeypatch):
-        """On TPU, compact=True would bypass the uber route, which is
-        the measured winner by >10x on every uber-eligible scene
-        (tools/r5_compact_cornell, v5e 2026-08-20)."""
-        from rust_ray_tracer_tpu.models import builders
-        from rust_ray_tracer_tpu.ops import integrator
-        from rust_ray_tracer_tpu.ops import pallas_intersect as pk
-        monkeypatch.setattr(pk, "on_tpu", lambda: True)
-        for name, expect in (("cornell_box", False),       # uber route
-                             ("cornell_triangle", False),  # uber route
-                             # in-kernel marble made random uber-eligible
-                             ("random", False)):
-            sd = compile_scene(builders.get_scene(name, 16 / 9))
-            assert integrator.auto_compact(sd) is expect, name
-        # opting out of in-kernel noise re-enables the occupancy probe
-        monkeypatch.setenv("RRT_UBER_NOISE", "0")
-        sd = compile_scene(builders.get_scene("random", 16 / 9))
-        assert integrator.auto_compact(sd) is True
-
     def test_small_mesh_in_void_off(self):
-        from rust_ray_tracer_tpu.models.gltf import load_gltf_scene
+        """The flagship mesh: 968 small triangles in front of a dark
+        background — most primaries miss."""
+        from rust_ray_tracer_tpu.models import builders
         from rust_ray_tracer_tpu.ops.integrator import auto_compact
-        for asset in ("suzanne.gltf", "default.gltf"):
-            sd = compile_scene(load_gltf_scene(
-                f"/root/reference/assets/{asset}", 16 / 9))
-            assert auto_compact(sd) is False, asset
+        sd = compile_scene(builders.flagship(16 / 9))
+        assert auto_compact(sd) is False
 
     def test_empty_scene_off(self):
         from rust_ray_tracer_tpu.ops.integrator import auto_compact

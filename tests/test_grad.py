@@ -282,7 +282,7 @@ def test_sphere_pole_uv_grads_finite():
     """Regression: a ray hitting a sphere's pole saturates the UV
     arccos/arctan2 inputs exactly; their infinite/NaN derivatives times a
     zero cotangent used to poison every upstream gradient (found when an
-    inverse-rendering run NaN'd on TPU)."""
+    inverse-rendering run went NaN)."""
     from rust_ray_tracer_tpu.ops.integrator import trace_rays
 
     base = compile_scene(S.Scene(cam(), [

@@ -392,10 +392,10 @@ def test_differentiable_t_wrt_vertex():
 
 
 def test_kind_rows_big_branch_matches_fused():
-    """intersect_select's two gather layouts — the fused [P, 11+A] row
-    table (small meshes) and the split pack/flip-mat/mat-attr gathers
-    (>FUSED_ROW_MAX, e.g. 1M-tri MetalRoughSpheres) — must produce an
-    identical Select. Forced by lowering the threshold to 0."""
+    """intersect_select's two gather layouts — the fused [P, 11] row
+    table (small meshes) and the per-kind gathers (>FUSED_ROW_MAX, e.g.
+    1M-tri meshes) — must produce an identical Select. Forced by
+    lowering the threshold to 0."""
     import rust_ray_tracer_tpu.ops.intersect as it
 
     rng = np.random.default_rng(7)

@@ -54,3 +54,18 @@ def test_cornell_brightness_sanity():
     assert np.isfinite(img).all()
     assert img.max() > 1.0      # emissive seen directly (15,15,15)
     assert img.mean() > 1e-3    # walls lit
+
+
+@pytest.mark.parametrize("n_tris", [968, 200])
+def test_flagship_builder(n_tris):
+    """The procedural flagship mesh: seeded (same scene twice), sized by
+    n_tris, double-sided triangles plus one sphere lamp in the light list."""
+    a = compile_scene(builders.flagship(16 / 9, 0, n_tris))
+    b = compile_scene(builders.get_scene("flagship", 16 / 9))
+    real = int((np.abs(np.asarray(a.tri_e1)).sum(1) > 0).sum())
+    assert real == n_tris
+    assert a.n_spheres >= 1 and a.n_lights == 1
+    assert bool(np.asarray(a.tri_double)[:n_tris].all())
+    if n_tris == 968:
+        for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
